@@ -1,7 +1,7 @@
-"""extpom_tpu — a TPU-native sigma-coordinate ocean dynamical core.
+"""extpom_tpu — a sigma-coordinate ocean dynamical core in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
-Fortran+MPI model extPOM/sbPOM (see SURVEY.md): 3-D primitive equations on an
+A JAX/XLA framework with the capabilities of the reference Fortran+MPI
+model extPOM/sbPOM (see SURVEY.md): 3-D primitive equations on an
 Arakawa C-grid, mode-split leapfrog time stepping (external barotropic 2-D
 mode + internal baroclinic 3-D mode) with Asselin filtering, central and
 Smolarkiewicz MPDATA tracer advection, 2nd/4th-order baroclinic pressure
@@ -9,7 +9,7 @@ gradients, Smagorinsky lateral mixing, Mellor-Yamada 2.5 turbulence closure
 with implicit tridiagonal vertical solves, open lateral boundaries with
 file-driven forcing, interior restoring, and seamless checkpoint/restart.
 
-Design notes (TPU-first, not a port):
+Design notes (a re-design for accelerators, not a port):
 
 * All model state lives in a single immutable :class:`~extpom_tpu.core.state.State`
   pytree (replacing the reference's COMMON blocks, pom.h_dist:216-450); the
@@ -17,16 +17,15 @@ Design notes (TPU-first, not a port):
   jitted pure function (``lax.fori_loop`` over the external mode).
 * Ops are written on *global* arrays with shifted-slice stencils.  Under
   ``jax.jit`` with a :class:`jax.sharding.NamedSharding` over a 2-D device
-  mesh, XLA's SPMD partitioner turns the shifted slices into 1-cell (2-cell
-  for the McCalpin PG) halo collective-permutes over ICI, replacing the
-  reference's hand-written ``exchange2d/3d_mpi`` (parallel_mpi.f:154-480) and
-  overlapping them with interior compute via the latency-hiding scheduler.
-  Decomposition invariance holds by construction.
+  mesh, XLA's SPMD partitioner turns the shifted slices into 1-cell
+  (2-cell for the McCalpin PG) halo collective-permutes between devices,
+  replacing the reference's hand-written ``exchange2d/3d_mpi``
+  (parallel_mpi.f:154-480); ``mesh.shardmap`` is the explicit
+  alternative.  tests/test_sharding.py and tests/test_shardmap.py hold
+  both to the single-device path.
 * Vertical implicit solves (profq/proft/profu/profv, solver.f:1212-1877) are
   Thomas-algorithm ``lax.scan``s over the leading k axis, vectorized over the
   full (im, jm) slab per scan step.
-* Hot stencil groups additionally have fused Pallas TPU kernels
-  (``extpom_tpu.pallas``) used when profitable.
 * I/O is chunked Zarr-compatible storage via TensorStore
   (``extpom_tpu.io``), replacing collective PnetCDF (io_pnetcdf.F).
 
@@ -34,8 +33,8 @@ Array conventions
 -----------------
 * 2-D horizontal fields: shape ``(im, jm)`` indexed ``[i, j]``.
 * 3-D fields: shape ``(kb, im, jm)`` indexed ``[k, i, j]`` (k outermost so
-  vertical scans stride over contiguous (im, jm) slabs; i/j are the
-  sublane/lane axes on TPU).
+  vertical scans stride over contiguous (im, jm) slabs; j is the
+  contiguous axis).
 * Vertical 1-D arrays (z, zz, dz, dzz): shape ``(kb,)``.
 * Boundary arrays: west/east sides ``(jm,)`` / ``(kb, jm)``; north/south
   sides ``(im,)`` / ``(kb, im)``.

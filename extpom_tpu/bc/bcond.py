@@ -34,8 +34,7 @@ from extpom_tpu.ops.stencil import sft, sfk, put, set_i, set_j, s_
 def _bj(a1d: jnp.ndarray) -> jnp.ndarray:
     """Broadcast a (jm,) or (kb, jm) boundary series along the i axis.
 
-    Full-rank 3-D fields (the pre-broadcast windowed form used inside the
-    Pallas phase kernels) pass through unchanged."""
+    Full-rank 3-D fields (already broadcast) pass through unchanged."""
     if a1d.ndim >= 3:
         return a1d
     return a1d[..., None, :]
@@ -44,11 +43,8 @@ def _bj(a1d: jnp.ndarray) -> jnp.ndarray:
 def _bi(a1d: jnp.ndarray) -> jnp.ndarray:
     """Broadcast an (im,) or (kb, im) boundary series along the j axis.
 
-    Full-rank 3-D fields (the pre-broadcast windowed form used inside the
-    Pallas phase kernels) pass through unchanged, as do 2-D (im, jm)
-    pre-broadcast series inside i-windowed kernels (pallas/extwin.py) —
-    there every legitimately-1-D series arrives pre-broadcast, and a
-    window slice of a 1-D series could not be row-aligned anyway."""
+    Full-rank 3-D fields and 2-D (im, jm) series (already broadcast)
+    pass through unchanged."""
     if a1d.ndim >= 3:
         return a1d
     if a1d.ndim == 2:
@@ -172,9 +168,8 @@ def bc_ts(grid: Grid, cfg: Config,
     kbm1 = cfg.kbm1
     K = slice(0, kbm1)
     zz3 = grid.zz3  # (kb, 1, 1)
-    # vertical-advection correction applies for 0 < k < kbm1-1; a 3-D
-    # broadcasted iota (not 1-D arange, not a captured numpy constant)
-    # lowers both through XLA and through Mosaic in the phase kernels
+    # vertical-advection correction applies for 0 < k < kbm1-1 (a 3-D
+    # broadcasted iota, not a captured numpy constant)
     import jax.lax as _lax
     kidx = _lax.broadcasted_iota(jnp.int32, (cfg.kb, 1, 1), 0)
     kmask = ((kidx > 0) & (kidx < kbm1 - 1)).astype(t.dtype)

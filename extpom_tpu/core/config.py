@@ -100,91 +100,40 @@ class Config:
                                # every step — identical output values)
 
     # -- numerics --
-    dtype: str = "float32"     # compute dtype ("float32" on TPU,
-                               # "float64" for CPU validation)
+    dtype: str = "float32"     # compute dtype ("float32" in production,
+                               # "float64" for validation)
 
     # -- schedule tuning (performance-only; bit-identical results) --
     # Unroll factor for the Thomas sweeps over k (lax.scan in ops.vertical):
     # kb is small and static, so full unroll turns 2*(kb-1) sequential loop
     # dispatches per solve into straight-line code XLA can fuse.  Values
-    # above kb clamp to full unroll; PARTIAL unroll (1 < u < kb) trips an
-    # XLA closed_call lowering bug on the TPU backend in this environment —
-    # keep it 1 or >= kb.
+    # above kb clamp to full unroll.
     scan_unroll: int = 1024
     # Unroll factor for the isplit external-mode substeps (lax.fori_loop in
     # core.stepper); must divide isplit when > 1.
     ext_unroll: int = 1
-    # VMEM-resident Pallas kernel for the whole external-mode loop
-    # (pallas/extloop.py): "auto" uses it on TPU when the 2-D working set
-    # fits VMEM; "on" forces it (interpreted off-TPU: for tests); "off"
-    # always uses the XLA fori_loop.
-    pallas_ext: str = "auto"
-    # Fused halo-window Pallas kernels for the internal-mode phases
-    # (pallas/phases.py): each phase (uvw+vertvl, TKE, tracers, momentum)
-    # becomes a handful of big kernels blocked over i-stripes with halo
-    # windows, replacing the ~1600 launch-bound XLA kernels per step.
-    # "auto" uses them on a single TPU; "on" forces (interpreted off-TPU:
-    # for tests); "off" keeps the plain XLA phase path.
-    pallas_phases: str = "auto"
-    phase_block: int = 64      # max i-stripe interior rows per kernel
-                               # instance; pallas.phases.phase_plan walks
-                               # it down PER PHASE (and decides the
-                               # input/output double-buffering) against
-                               # an on-chip-anchored VMEM scratch model
-                               # sized for each phase's exact operand set
-    phase_halo: int = 8        # halo rows per side (>= total chained
-                               # stencil radius of any one phase; multiple
-                               # of 8 for sublane-aligned DMA starts)
-    phase_double_buffer: bool = True   # allow 2-slot input windows
-                               # (prefetch the next stripe while
-                               # computing; phase_plan trades the slots
-                               # against stripe size per phase).
-                               # Measured: 732 vs 626 Mpt-steps/s at
-                               # 256^2x31.
-    phase_out_double: bool = True      # 2-slot OUTPUT windows: the stripe
-                               # write-back drains while the next stripe
-                               # computes (r4: 790 vs 742 Mpt-steps/s at
-                               # 256^2x31).  Off trades the overlap for
-                               # VMEM (a larger Bi on wide grids).
-    # Halo-window Pallas external loop (pallas/extwin.py): for grids
-    # beyond the whole-grid VMEM kernel, runs extwin_chunk substeps per
-    # manual-DMA window pass over i-stripes — isplit/C full-grid HBM
-    # passes instead of isplit.  "auto" uses it on a single TPU when the
-    # whole-grid kernel does not fit; "on" forces (interpreted off-TPU).
-    pallas_extwin: str = "auto"
-    extwin_chunk: int = 10     # substeps per window pass (C; clipped to a
-                               # divisor of isplit, walked down on wide
-                               # grids to bound the halo read overhead)
-    extwin_budget_mb: int = 55 # VMEM window budget for extwin blocks
     # Chunked halo-ring external loop inside shard_map local mode
     # (mesh/extchunk.py): one width-C*ext_halo_sub ring exchange per C
     # substeps instead of a ppermute per shifted read.  "auto" enables it
     # whenever the step runs under shard_map; "off" keeps per-read
     # exchanges.
     ext_local_chunk: str = "auto"
+    extwin_chunk: int = 10     # cap on C (clipped to a divisor of isplit
+                               # and to the local block's extent)
     # HBM budget for device-staged forcing series (forcing/device.py):
     # when a provider's full record series exceeds this, run_segment
     # stages only the record window each segment needs and re-stages
     # between segments (the reference streams one record pair,
     # bounds_forcing.f:607-613).
     forcing_hbm_mb: int = 512
-    # Fused Pallas Thomas solver for the vertical implicit solves
-    # (pallas/tridiag.py): "on" forces the standalone kernel (valid on
-    # single devices and shard_map local blocks); "auto" resolves OFF —
-    # the fused phase kernels absorb the vertical solves on the fast
-    # path, and the standalone kernel measured as a net loss (r2
-    # regression; see pallas/tridiag.py).
-    pallas_tridiag: str = "auto"
     # Trivial 1x1 shard_map meshes: the local block IS the whole domain,
     # so the explicit local-ctx machinery (traced block offsets in every
-    # region mask, O(volume) full-field edge writes, the ring-extended
-    # mesh variants of the Pallas kernels) buys nothing — it is the
-    # analogue of exchange2d_mpi degenerating to no-op sends at
+    # region mask, O(volume) full-field edge writes) buys nothing — it is
+    # the analogue of exchange2d_mpi degenerating to no-op sends at
     # n_proc=1 (parallel_mpi.f:154-351).  "auto" (default) runs the
     # single-device global machine inside the shard_map body at a 1x1
-    # mesh (bitwise-identical results; removes the measured ~10 %
-    # shard_map(1x1) tax); "local" keeps the explicit machinery (used by
-    # tools/meshbench.py to price the mesh-variant overhead on one chip).
+    # mesh (bitwise-identical results); "local" keeps the explicit
+    # machinery (tools/meshbench.py prices it on one card).
     trivial_shardmap: str = "auto"
     ext_halo_sub: int = 3      # halo cells consumed per substep (rho).
                                # The substep's true carry-stencil radius is

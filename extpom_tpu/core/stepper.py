@@ -8,9 +8,9 @@ One call to :func:`step` advances the model by one internal (3-D) time step
 
 The whole thing is a pure function ``(grid, cfg static, state, forcing) ->
 state`` designed to be wrapped in ``jax.jit`` with ``donate_argnums`` for
-the state (so leapfrog level rotation is in-place in HBM).  The external
-substeps run under ``lax.fori_loop``; the iext-dependent tail-averaging of
-``etf`` (advance.f:295-318) is branchless.
+the state (so leapfrog level rotation is in place in device memory).  The
+external substeps run under ``lax.fori_loop``; the iext-dependent
+tail-averaging of ``etf`` (advance.f:295-318) is branchless.
 
 Forcing reads stay on the host (see ``extpom_tpu.forcing``); the traced step
 never touches files.
@@ -78,16 +78,15 @@ def mode_interaction(grid: Grid, cfg: Config, st: State,
 
 def ext_precompute(grid):
     """Loop-invariant derived metrics of the external mode, hoisted out of
-    the isplit substep loop (ROOFLINE r3: the VMEM-resident external loop
-    is VPU-bound, and these static shift/sum/reciprocal subexpressions
-    were being recomputed every substep — ~18 shifted adds and ~6 divides
-    per point per substep in advance.f:205-353 + solver.f:16-121 terms).
+    the isplit substep loop: these static shift/sum/reciprocal
+    subexpressions would otherwise be recomputed every substep — ~18
+    shifted adds and ~6 divides per point per substep in
+    advance.f:205-353 + solver.f:16-121 terms.
 
-    Call ONCE per trace or kernel instance under the ambient DomainCtx
-    (inside the Pallas kernels the values live in VMEM across the loop;
-    under shard_map local mode the sft halo permutes run once instead of
-    per substep).  Consumes one extra halo cell relative to the substep
-    chain — covered by ext_halo_sub's margin (radius 2 + 1 <= 3/substep).
+    Call ONCE per trace under the ambient DomainCtx (under shard_map local
+    mode the sft halo permutes then run once instead of per substep).
+    Consumes one extra halo cell relative to the substep chain — covered
+    by ext_halo_sub's margin (radius 2 + 1 <= 3/substep).
 
     Reciprocals (rart, rdx, rdy, rdx4, rdy4) replace divisions by static
     metrics with multiplies; results differ from the reference's division
@@ -371,9 +370,6 @@ def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
 
     ``first=True`` reproduces the reference's cold-start behavior where the
     3-D update block is skipped on the very first step (advance.f:362).
-    The four phases run either directly (XLA fuses within each phase) or as
-    fused halo-window Pallas kernels (pallas/phases.py) when
-    ``cfg.pallas_phases`` dispatches them.
     """
     h = grid.h
     dt = h + st.et     # pre-update dt (time n)
@@ -386,33 +382,20 @@ def mode_internal(grid: Grid, cfg: Config, st: State, fc: Forcing,
     wubot, wvbot = c.wubot, c.wvbot
 
     if (not first) and cfg.mode != 2:
-        from extpom_tpu.pallas import phases as pph
-        run = pph.make_runner(grid, cfg, fc)
-
-        if run is not None:
-            u, v, w = run.uvw(u, v, w, dt, st.utb, st.vtb, c.utf, c.vtf,
-                              st.etb, etf, st.vfluxb, fc.vflux)
-            (q2, q2b, q2l, q2lb, km, kh, kq, l) = run.tke(
-                q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
-                km, kh, kq, l, dt, st.etb, etf, wubot, wvbot)
-            if cfg.mode != 4:
-                t, tb, s, sb, rho = run.tracer(
-                    t, tb, s, sb, tclim, sclim, u, ub, v, w, aam, kh,
-                    dt, st.etb, etf)
-            u, ub, v, vb, wubot, wvbot = run.mom(
-                u, ub, v, vb, w, advx, advy, drhox, drhoy, km,
-                dt, c.egf, st.egb, st.etb, etf, h + c.el)
-        else:
+        with jax.named_scope("phase_uvw"):
             u, v, w = phase_uvw(grid, cfg, u, v, w, dt, st.utb, st.vtb,
                                 c.utf, c.vtf, st.etb, etf, st.vfluxb,
                                 fc.vflux)
+        with jax.named_scope("phase_tke"):
             (q2, q2b, q2l, q2lb, km, kh, kq, l) = phase_tke(
                 grid, cfg, q2, q2b, q2l, q2lb, u, v, w, aam, t, s, rho,
                 km, kh, kq, l, dt, st.etb, etf, wubot, wvbot, fc)
-            if cfg.mode != 4:
+        if cfg.mode != 4:
+            with jax.named_scope("phase_tracer"):
                 t, tb, s, sb, rho = phase_tracer(
                     grid, cfg, t, tb, s, sb, tclim, sclim, u, ub, v, w,
                     aam, kh, dt, st.etb, etf, fc)
+        with jax.named_scope("phase_mom"):
             u, ub, v, vb, wubot, wvbot = phase_mom(
                 grid, cfg, u, ub, v, vb, w, advx, advy, drhox, drhoy,
                 km, dt, c.egf, st.egb, st.etb, etf, h + c.el, fc)
@@ -492,11 +475,6 @@ def lateral_terms(grid: Grid, cfg: Config, st: State, fc: Forcing,
     if cfg.mode == 2:
         return st.aam, None, None, None, None
     dt = grid.h + st.et
-    from extpom_tpu.pallas import phases as pph
-    run = pph.make_runner(grid, cfg, fc)
-    if run is not None:
-        return run.lat(st.u, st.v, st.ub, st.vb, st.aam, st.rho, rmean,
-                       dt, grid.h + st.el)
     return phase_lat(grid, cfg, st.u, st.v, st.ub, st.vb, st.aam,
                      st.rho, rmean, dt, grid.h + st.el, fc.ramp)
 
@@ -505,12 +483,15 @@ def _step(grid: Grid, cfg: Config, st: State, fc: Forcing,
           rmean: jnp.ndarray, tclim: jnp.ndarray, sclim: jnp.ndarray,
           first: bool = False) -> State:
     # lateral viscosity + 3-D advection/pressure terms (advance.f:21)
-    aam, advx, advy, drhox, drhoy = lateral_terms(grid, cfg, st, fc, rmean)
+    with jax.named_scope("lateral_terms"):
+        aam, advx, advy, drhox, drhoy = lateral_terms(grid, cfg, st, fc,
+                                                      rmean)
 
     # vertical averages for the external mode (advance.f:24)
-    (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
-     egf, utf, vtf) = mode_interaction(grid, cfg, st, aam, advx, advy,
-                                       drhox, drhoy)
+    with jax.named_scope("mode_interaction"):
+        (adx2d, ady2d, drx2d, dry2d, aam2d, advua, advva, wubot, wvbot,
+         egf, utf, vtf) = mode_interaction(grid, cfg, st, aam, advx, advy,
+                                           drhox, drhoy)
 
     # external mode loop (advance.f:27-29)
     carry0 = ExtCarry(el=st.el, elb=st.elb, ua=st.ua, uab=st.uab,
@@ -519,32 +500,23 @@ def _step(grid: Grid, cfg: Config, st: State, fc: Forcing,
                       wubot=wubot, wvbot=wvbot)
     aux = (adx2d, ady2d, drx2d, dry2d, aam2d)
 
-    from extpom_tpu.pallas import extloop, extwin
     from extpom_tpu.ops import stencil
     from extpom_tpu.mesh import extchunk
-    if extloop.use_pallas_ext(cfg):
-        # whole loop VMEM-resident: one HBM read+write of the 2-D state
-        carry = extloop.run_external_loop(
-            grid, cfg, carry0, fc, aux,
-            interpret=jax.default_backend() != "tpu")
-    elif extwin.use_pallas_extwin(cfg):
-        # beyond VMEM: C substeps per manual-DMA halo-window pass
-        carry = extwin.run_external_loop_windowed(
-            grid, cfg, carry0, fc, aux,
-            interpret=jax.default_backend() != "tpu")
-    elif extchunk.use_chunked_local(cfg, stencil.domain_ctx(),
-                                    carry0.el.shape):
-        # shard_map local mode: one halo-ring exchange per C substeps
-        carry = extchunk.run_external_loop_chunked(
-            grid, cfg, carry0, fc, aux, stencil.domain_ctx())
-    else:
-        em = ext_precompute(grid)
+    with jax.named_scope("external_mode"):
+        if extchunk.use_chunked_local(cfg, stencil.domain_ctx(),
+                                      carry0.el.shape):
+            # shard_map local mode: one halo-ring exchange per C substeps
+            carry = extchunk.run_external_loop_chunked(
+                grid, cfg, carry0, fc, aux, stencil.domain_ctx())
+        else:
+            em = ext_precompute(grid)
 
-        def body(i, c):
-            return mode_external_substep(grid, cfg, c, i, fc, aux, em=em)
+            def body(i, c):
+                return mode_external_substep(grid, cfg, c, i, fc, aux,
+                                             em=em)
 
-        carry = lax.fori_loop(1, cfg.isplit + 1, body, carry0,
-                              unroll=min(cfg.ext_unroll, cfg.isplit))
+            carry = lax.fori_loop(1, cfg.isplit + 1, body, carry0,
+                                  unroll=min(cfg.ext_unroll, cfg.isplit))
 
     # internal mode (advance.f:32)
     st = mode_internal(grid, cfg, st, fc, carry, aam, advx, advy,
@@ -578,7 +550,8 @@ def run_steps(grid: Grid, cfg: Config, st: State, fc: Forcing,
             ramp = jnp.asarray(1.0, dt_)
         if plan is not None:
             from extpom_tpu.forcing import device as fdev
-            fc_i = fdev.forcing_at(plan, fc, cfg, grid.dz, t_days)
+            with jax.named_scope("forcing_interp"):
+                fc_i = fdev.forcing_at(plan, fc, cfg, grid.dz, t_days)
         else:
             fc_i = fc
         return step(grid, cfg, st, fc_i.replace(ramp=ramp),

@@ -6,7 +6,7 @@ The reference's only instrumentation is a master-rank wall-clock print
 * :class:`PhaseTimer` — per-phase wall timers with device synchronization
   (block_until_ready) so compute/comm phases are attributed correctly.
 * :func:`trace` — context manager around ``jax.profiler`` producing xplane
-  dumps (for verifying ICI/compute overlap in sharded runs).
+  dumps (for verifying collective/compute overlap in sharded runs).
 * :func:`step_breakdown` — times the external-only (mode=2) and full
   step variants to split external/internal mode cost.
 """

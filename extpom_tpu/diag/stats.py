@@ -67,7 +67,7 @@ def domain_stats(grid: Grid, cfg: Config, st: State) -> Dict[str, jnp.ndarray]:
     # carry the accumulation in f64 where the runtime has it (CPU
     # validation; also any x64-enabled host check of an f32 state): the
     # stats then expose STATE drift, not summation noise.  With x64 off
-    # (TPU production) this is a no-op and the compensated tree below
+    # (production) this is a no-op and the compensated tree below
     # still delivers totals exact to the f32 ulp.
     wide = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     act = lambda a: a[..., :ia, :ja].astype(wide)

@@ -26,15 +26,25 @@ from typing import Dict, Optional
 import numpy as np
 
 try:
-    import tensorstore as ts
+    import tensorstore as _tensorstore
     HAVE_TS = True
-except ImportError:          # pragma: no cover - tensorstore is baked in
-    ts = None
+except ImportError:
+    _tensorstore = None
     HAVE_TS = False
 
 from extpom_tpu.core.config import Config
 from extpom_tpu.core.grid import Grid
 from extpom_tpu.core.state import State
+
+
+def _ts():
+    """The tensorstore module, or a clear error where it is missing."""
+    if _tensorstore is None:
+        raise RuntimeError(
+            "Zarr I/O needs the 'tensorstore' package, which is not "
+            "installed; run with \"out_format\": \"nc\" and .nc inputs "
+            "(io/netcdf.py needs only scipy)")
+    return _tensorstore
 
 
 def _spec(path: str, create: bool = False,
@@ -71,7 +81,7 @@ def write_array(root: str, name: str, arr,
         chunks = (1,)
     spec, kw = _spec(os.path.join(root, name), create=True,
                      shape=a.shape, dtype=a.dtype, chunks=chunks)
-    arr_ts = ts.open(spec, **kw).result()
+    arr_ts = _ts().open(spec, **kw).result()
     arr_ts[...] = a
 
 
@@ -89,10 +99,10 @@ def _write_array_multihost(root: str, name: str, arr,
     if jax.process_index() == 0:
         spec, kw = _spec(path, create=True, shape=shape, dtype=dtype,
                          chunks=chunks)
-        ts.open(spec, **kw).result()
+        _ts().open(spec, **kw).result()
     process_barrier(f"zarr-create:{name}")
     spec, _ = _spec(path)
-    h = ts.open(spec).result()
+    h = _ts().open(spec).result()
     futures = []
     for shard in arr.addressable_shards:
         if shard.replica_id == 0:
@@ -104,7 +114,7 @@ def _write_array_multihost(root: str, name: str, arr,
 
 def read_array(root: str, name: str) -> np.ndarray:
     spec, _ = _spec(os.path.join(root, name))
-    arr_ts = ts.open(spec).result()
+    arr_ts = _ts().open(spec).result()
     return np.asarray(arr_ts.read().result())
 
 
@@ -268,7 +278,7 @@ class ZarrSource:
         h = self._handles.get(name)
         if h is None:
             spec, _ = _spec(os.path.join(self.root, name))
-            h = ts.open(spec).result()
+            h = _ts().open(spec).result()
             self._handles[name] = h
         return h
 

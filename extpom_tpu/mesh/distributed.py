@@ -15,8 +15,8 @@ equivalents:
   host ever holds a remote shard).
 * :func:`process_barrier` — sync point for ordered multi-host I/O.
 
-On CPU (tests) the backend uses gloo collectives; on TPU pods the same
-calls ride ICI/DCN.
+On CPU (tests) the backend uses gloo collectives; on GPU hosts the same
+calls ride NCCL over NVLink and the network.
 """
 
 from __future__ import annotations

@@ -6,11 +6,11 @@ EVERY shifted read of every substep (ops/stencil.py ``_halo_shift``) —
 internal step, the same pattern as the reference's per-kernel
 exchange2d_mpi calls (parallel_mpi.f:154-239).
 
-This module applies the temporal-tiling trade (the shard_map analogue of
-pallas/extwin.py): once per ``C`` substeps, exchange ONE halo ring of
-width ``H = C x ext_halo_sub`` per carry field (x strips first, then y
-strips of the already-extended block, so corners ride along — the same
-ordering trick the reference's exchange2d relies on), then run the C
+This module applies the temporal-tiling trade: once per ``C`` substeps,
+exchange ONE halo ring of width ``H = C x ext_halo_sub`` per carry field
+(x strips first, then y strips of the already-extended block, so corners
+ride along — the same ordering trick the reference's exchange2d relies
+on), then run the C
 substeps on the halo-extended local block with PLAIN local shifts under a
 windowed DomainCtx (global region masks).  Collective count drops from
 ~isplit x 30 permutes to (isplit/C) x 14 ring exchanges + a one-time
@@ -20,19 +20,23 @@ Correctness at physical edges: ppermute non-receivers zero-fill the ring,
 matching ``sft``'s zero-fill-beyond-domain semantics, and every substep
 update is either put-masked on GLOBAL indices (out-of-domain rows keep
 their zero base) or arithmetic on already-zero values (the
-padded-window invariant, verified by the extwin equivalence tests).
+padded-window invariant, tests/test_shardmap.py).
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import jax.numpy as jnp
 from jax import lax
 
 from extpom_tpu.core.config import Config
-from extpom_tpu.core import hw
 from extpom_tpu.ops import stencil
+
+# forcing fields the external substep reads: 2-D fields, and the 1-D
+# open-boundary series of bcond idx 1/2 (bounds_forcing.f:18-83) along j
+# (length jm) and along i (length im)
+FC_2D_FIELDS = ("wusurf", "wvsurf", "vflux", "e_atmos")
+FC_1D_J = ("elw", "ele", "uabw", "uabe", "vabw", "vabe")
+FC_1D_I = ("els", "eln", "vabs", "vabn", "uabs", "uabn")
 
 
 def use_chunked_local(cfg: Config, ctx, local_shape=None) -> bool:
@@ -50,8 +54,6 @@ def _chunk(cfg: Config, ctx, local_shape) -> int:
     if ctx.px <= 1 and ctx.py <= 1:
         # unsplit mesh (shard_map 1x1): local shifts never cross a block
         # boundary, no halo is consumed — the whole loop is one chunk
-        # (the VMEM-resident Pallas kernel then matches the single-device
-        # extloop pass exactly)
         return cfg.isplit
     lim = cfg.isplit * cfg.ext_halo_sub
     if local_shape is not None:
@@ -65,11 +67,9 @@ def _chunk(cfg: Config, ctx, local_shape) -> int:
     return 1
 
 
-def _ring_extend(a, ctx, H: int, fill: float = 0.0, Hy: Optional[int] = None):
+def _ring_extend(a, ctx, H: int, fill: float = 0.0):
     """Local (.., ni, nj) block -> (.., ni+2Hx, nj+2Hy) with neighbor halo
-    rings.  Hx/Hy collapse to 0 on un-split axes; ``Hy`` overrides the
-    j-axis ring width (pallas.phases.mesh_runner keeps the lane extent
-    128-aligned with a wider y ring).
+    rings of width H; Hx/Hy collapse to 0 on un-split axes.
 
     ``fill`` is the value rings take BEYOND the physical domain (ppermute
     non-receivers).  Prognostic fields use 0.0 — matching ``sft``'s
@@ -81,7 +81,7 @@ def _ring_extend(a, ctx, H: int, fill: float = 0.0, Hy: Optional[int] = None):
     compute 0/0 -> NaN intermediates whose silent propagation one
     unmasked expression away — 1.0 keeps all halo arithmetic finite."""
     Hx = H if ctx.px > 1 else 0
-    Hy = (H if Hy is None else Hy) if ctx.py > 1 else 0
+    Hy = H if ctx.py > 1 else 0
 
     def _fill_where_edge(recv, name, first_pos):
         if fill == 0.0:
@@ -125,127 +125,27 @@ def _ring_extend_1d(a, ctx, H: int, axis: str):
     return jnp.concatenate([lo, a, hi], axis=-1)
 
 
-def _use_pallas_chunk(cfg: Config, R: int, L: int) -> bool:
-    """Dispatch the VMEM-resident Pallas kernel for each C-substep chunk
-    (pallas.extloop.run_external_chunk_vmem) instead of the XLA fori body.
-    This is what carries the single-device external-mode speed onto the
-    mesh: per chunk, ONE kernel reads the extended 2-D working set from
-    HBM once instead of once per substep.  "on" forces (interpret
-    off-TPU: tests); "auto" requires TPU f32 and the extended local
-    working set within the device VMEM budget."""
-    from extpom_tpu.pallas import extloop
-    if cfg.pallas_ext == "off" or not extloop._HAVE_PLTPU:
-        return False
-    if cfg.pallas_ext == "on":
-        return True
-    n_blocks = (len(extloop.CARRY_FIELDS) + len(extloop.GRID_FIELDS)
-                + len(extloop.AUX_FIELDS) + len(extloop.FC_2D_FIELDS))
-    return (hw.backend() == "tpu" and cfg.dtype == "float32"
-            and n_blocks * R * L * 4 <= extloop.device_vmem_budget())
-
-
-def chunk_plan(cfg: Config, ctx, ni: int, nj: int):
-    """Static decisions of the chunked external loop for a (ni, nj)
-    local block: (C substeps per ring exchange, Hx/Hy ring widths, R/L
-    extended extents, chunk-body machine).  The body is the VMEM-resident
-    Pallas kernel (``use_pal``) when the whole extended 2-D working set
-    fits on-chip, else the striped window kernel (``use_win``,
-    pallas.extwin.run_external_chunk_windowed — the plain path's
-    large-grid external machine composed with the mesh), else the XLA
-    fori body.  For the window body, C is re-chosen to minimize modeled
-    HBM traffic (the same optimization as extwin.chunk_geometry: larger
-    C cuts passes but inflates both ring width and window read
-    amplification), and the x ring rounds up to a multiple of 4 so the
-    extended row extent R stays sublane-aligned for the window DMAs (the
-    extra ring rows carry further-valid neighbor data).  Shared by the
-    runner below and the dispatch report (core.dispatch) so the echo can
-    never drift from the execution."""
-    from extpom_tpu.pallas import extwin
-    C = _chunk(cfg, ctx, (ni, nj))
-    H = C * cfg.ext_halo_sub
-    # y-ring width: on a real TPU the Pallas chunk kernels want the lane
-    # extent of the extended block 128-aligned, so the y ring rounds up to
-    # a multiple of 64 (the extra rows carry further-valid neighbor data)
-    Hy_ring = H
-    if (hw.backend() == "tpu" and ctx.py > 1
-            and cfg.pallas_ext != "off"):
-        Hy_ring = -(-H // 64) * 64
-        if Hy_ring > nj:               # ring wider than the neighbor block
-            Hy_ring = H
-    Hx = H if ctx.px > 1 else 0
-    Hy = Hy_ring if ctx.py > 1 else 0
-    R, L = ni + 2 * Hx, nj + 2 * Hy
-    use_pal = _use_pallas_chunk(cfg, R, L) and (
-        hw.backend() != "tpu" or ctx.py == 1 or Hy % 64 == 0)
-    if use_pal:
-        return C, Hx, Hy, R, L, True, False
-
-    # window body: joint (C, geometry) over divisors of isplit
-    best = None
-    lim = cfg.isplit * cfg.ext_halo_sub
-    if ctx.px > 1:
-        lim = min(lim, ni)
-    if ctx.py > 1:
-        lim = min(lim, nj)
-    for Cw in range(min(cfg.extwin_chunk, cfg.isplit), 0, -1):
-        if cfg.isplit % Cw or Cw * cfg.ext_halo_sub > lim:
-            continue
-        Hw = Cw * cfg.ext_halo_sub
-        hx = -(-Hw // 4) * 4 if ctx.px > 1 else 0
-        if hx > ni:
-            continue
-        hy = 0
-        if ctx.py > 1:
-            hy = -(-Hw // 64) * 64 if hw.backend() == "tpu" else Hw
-            if hy > nj:
-                continue
-        r, lx = ni + 2 * hx, nj + 2 * hy
-        Hwin, Bi, ok = extwin.win_geometry(cfg, r, lx, Cw)
-        if not ok:
-            continue
-        traffic = (cfg.isplit // Cw) * (
-            extwin._N_WIN * (Bi + 2 * Hwin) / Bi + extwin._N_OUT
-        ) * r * lx
-        if best is None or traffic < best[0]:
-            best = (traffic, Cw, hx, hy, r, lx)
-    if best is not None and extwin.use_win_chunk(
-            cfg, best[4], best[5], best[1]):
-        _, Cw, hx, hy, r, lx = best
-        return Cw, hx, hy, r, lx, False, True
-    return C, Hx, Hy, R, L, False, False
-
-
 def run_external_loop_chunked(grid, cfg: Config, c0, fc, aux, ctx):
     """Run the isplit external substeps in chunks of C on halo-extended
-    local blocks.  Same contract as the other external-loop runners; must
-    be called inside shard_map local mode (``ctx.local``).
-
-    Each chunk body runs either as one VMEM-resident Pallas kernel
-    (:func:`_use_pallas_chunk`) or as an XLA ``fori_loop`` under a
-    windowed DomainCtx — same substep source either way."""
+    local blocks, each chunk an XLA ``fori_loop`` under a windowed
+    DomainCtx.  Same contract as the plain external loop; must be called
+    inside shard_map local mode (``ctx.local``)."""
     from extpom_tpu.core import stepper
-    from extpom_tpu.pallas import extloop
-    from extpom_tpu.pallas.extloop import (GRID_FIELDS, FC_2D_FIELDS,
-                                           FC_1D_J, FC_1D_I)
     from extpom_tpu.mesh.padding import _GRID_PAD_ONE
-    import jax as _jax
-
-    from extpom_tpu.pallas import extwin
 
     ni = c0.el.shape[-2]
     nj = c0.el.shape[-1]
-    C, Hx, Hy, R, L, use_pal, use_win = chunk_plan(cfg, ctx, ni, nj)
-    # ring widths come from the PLAN (the window body rounds the x ring
-    # up for sublane alignment), not re-derived from C
-    Hx_ring = Hx if ctx.px > 1 else C * cfg.ext_halo_sub
-    Hy_ring = Hy if ctx.py > 1 else C * cfg.ext_halo_sub
+    C = _chunk(cfg, ctx, (ni, nj))
+    H = C * cfg.ext_halo_sub
+    Hx = H if ctx.px > 1 else 0
+    Hy = H if ctx.py > 1 else 0
     n_chunks = cfg.isplit // C
 
-    ext = lambda a: _ring_extend(a, ctx, Hx_ring, Hy=Hy_ring)
+    ext = lambda a: _ring_extend(a, ctx, H)
     # static fields: extended once; denominator metrics get 1.0 beyond the
     # physical domain (finite halo arithmetic — the GRID_PAD_ONE rule)
     g_ns = type(grid)(**{  # Grid is a frozen dataclass pytree
-        **{f: _ring_extend(getattr(grid, f), ctx, Hx_ring, Hy=Hy_ring,
+        **{f: _ring_extend(getattr(grid, f), ctx, H,
                            fill=(1.0 if f in _GRID_PAD_ONE else 0.0))
            if getattr(grid, f).ndim >= 2
            and getattr(grid, f).shape[-2:] == (ni, nj)
@@ -254,45 +154,33 @@ def run_external_loop_chunked(grid, cfg: Config, c0, fc, aux, ctx):
     aux_e = tuple(ext(a) for a in aux)
     fc_patch = {f: ext(getattr(fc, f)) for f in FC_2D_FIELDS}
     fc_patch.update({f: _ring_extend_1d(
-        jnp.asarray(getattr(fc, f), c0.el.dtype), ctx, Hy_ring, "y")
+        jnp.asarray(getattr(fc, f), c0.el.dtype), ctx, H, "y")
         for f in FC_1D_J})
     fc_patch.update({f: _ring_extend_1d(
-        jnp.asarray(getattr(fc, f), c0.el.dtype), ctx, Hx_ring, "x")
+        jnp.asarray(getattr(fc, f), c0.el.dtype), ctx, H, "x")
         for f in FC_1D_I})
     fc_e = fc.replace(**fc_patch)
 
     # windowed ctx over the extended block: global offsets shift by -H on
-    # split axes (the same windowed-ctx pattern as pallas/extwin.py)
-    goff = (ctx.off_i - Hx, ctx.off_j - Hy)
+    # split axes
     win_ctx = stencil.DomainCtx(
         im=ctx.im, jm=ctx.jm, windowed=True,
-        off_i=goff[0], off_j=goff[1])
+        off_i=ctx.off_i - Hx, off_j=ctx.off_j - Hy)
 
     trim = lambda a: a[..., Hx:Hx + ni, Hy:Hy + nj] if (Hx or Hy) else a
-    interpret = _jax.default_backend() != "tpu"
 
     def chunk(ic, c):
         c = stepper.ExtCarry(*(ext(f) for f in c))
-        if use_pal:
-            c = extloop.run_external_chunk_vmem(
-                g_ns, cfg, c, fc_e, aux_e, C, ic * C + 1, goff,
-                interpret=interpret)
-        elif use_win:
-            c = extwin.run_external_chunk_windowed(
-                g_ns, cfg, c, fc_e, aux_e, C, ic * C + 1, goff,
-                ctx.im, ctx.jm, interpret=interpret)
-        else:
-            with stencil.domain(win_ctx), stencil.mask_caching():
-                em = stepper.ext_precompute(g_ns)
-                # peel the first substep to prime the mask cache (the
-                # same trick as the Pallas kernels)
-                c = stepper.mode_external_substep(
-                    g_ns, cfg, c, ic * C + 1, fc_e, aux_e, em=em)
+        with stencil.domain(win_ctx), stencil.mask_caching():
+            em = stepper.ext_precompute(g_ns)
+            # peel the first substep to prime the mask cache
+            c = stepper.mode_external_substep(
+                g_ns, cfg, c, ic * C + 1, fc_e, aux_e, em=em)
 
-                def body(s, c):
-                    return stepper.mode_external_substep(
-                        g_ns, cfg, c, ic * C + 1 + s, fc_e, aux_e, em=em)
-                c = lax.fori_loop(1, C, body, c)
+            def body(s, c):
+                return stepper.mode_external_substep(
+                    g_ns, cfg, c, ic * C + 1 + s, fc_e, aux_e, em=em)
+            c = lax.fori_loop(1, C, body, c)
         return stepper.ExtCarry(*(trim(f) for f in c))
 
     return lax.fori_loop(0, n_chunks, chunk, c0)

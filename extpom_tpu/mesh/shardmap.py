@@ -35,11 +35,8 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 from jax import lax
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:                                    # jax >= 0.8
-    from jax import shard_map
-except ImportError:                     # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 from extpom_tpu.core.config import Config
 from extpom_tpu.core.grid import Grid
@@ -79,14 +76,13 @@ def _local_ctx(cfg: Config, px: int, py: int, ni: int, nj: int):
 
     At a TRIVIAL 1x1 mesh (``cfg.trivial_shardmap="auto"``, the default)
     the local block is the whole domain, so the body runs the plain
-    global machine — no traced block offsets in the region masks, row-
-    sliced O(edge) boundary writes, and the single-device Pallas fast
-    paths dispatch instead of their ring-extended mesh variants.  This is
+    global machine — no traced block offsets in the region masks, and
+    row-sliced O(edge) boundary writes.  This is
     the analogue of the reference's communication layer degenerating to
     no-op sends at one process (parallel_mpi.f:154-351); results are
     identical (tests/test_shardmap.py covers both settings).
     ``trivial_shardmap="local"`` keeps the explicit machinery so
-    tools/meshbench.py can price the mesh-variant overhead on one chip.
+    tools/meshbench.py can price it on one card.
     """
     if px == 1 and py == 1 and cfg.trivial_shardmap == "auto":
         if (cfg.im_act or cfg.im) == cfg.im and (cfg.jm_act or cfg.jm) == cfg.jm:
@@ -133,7 +129,7 @@ def make_shardmap_step(mesh: Mesh, grid: Grid, cfg: Config,
             mesh=mesh,
             in_specs=(grid_spec, state_spec, fc_spec, r3, r3, r3),
             out_specs=state_spec,
-            check_rep=False)
+            check_vma=False)
 
     kw = dict(static_argnames=("first",))
     if donate:
@@ -210,10 +206,9 @@ def make_shardmap_run(mesh: Mesh, grid: Grid, cfg: Config,
     shard_map body — one device dispatch per segment on the explicit
     ppermute path, the reference's host-round-trip-free ``do iint=1,iend``
     loop (pom.f:16-22).  Collectives are legal under ``lax.scan``, so the
-    chunked halo-ring external loop and the mesh-composed Pallas phase
-    kernels both dispatch inside the scan; staged DevicePlan forcing
-    series ride in sharded like the fields they feed and are interpolated
-    on device inside the scan.
+    chunked halo-ring external loop runs inside the scan; staged
+    DevicePlan forcing series ride in sharded like the fields they feed
+    and are interpolated on device inside the scan.
 
     Returns ``run(grid, st, fc, rmean, tclim, sclim, iint0, n_steps,
     first=False, plan=None)`` — the :func:`extpom_tpu.core.stepper.
@@ -252,7 +247,7 @@ def make_shardmap_run(mesh: Mesh, grid: Grid, cfg: Config,
                 local_run, mesh=mesh,
                 in_specs=(grid_spec, state_spec, fc_spec, r3, r3, r3,
                           P(), plan_spec),
-                out_specs=state_spec, check_rep=False)
+                out_specs=state_spec, check_vma=False)
             cache[key] = jax.jit(sm)
         return cache[key](grid_a, st, fc, rmean, tclim, sclim,
                           jnp.asarray(iint0), plan)

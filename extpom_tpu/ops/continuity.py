@@ -38,8 +38,7 @@ def vertvl(grid: Grid, cfg: Config,
                        / (dx * dy)
                        + (etf - etb) / cfg.dti2))
     # sequential downward sum (not jnp.cumsum): matches the reference's
-    # ascending-k loop association exactly and lowers through Mosaic inside
-    # the fused phase kernels (pallas/phases.py)
+    # ascending-k loop association exactly
     rows = [w[0]]
     for k in range(kbm1):
         rows.append(rows[-1] + inc[k])

@@ -33,9 +33,7 @@ def _cumk(inc: jnp.ndarray) -> jnp.ndarray:
 
     Written as an unrolled sequential sum (kb is small and static) rather
     than ``jnp.cumsum``: the strictly sequential association matches the
-    reference's ascending-k loop (solver.f:864-878) bit-for-bit, and the
-    expression lowers through Mosaic inside the fused Pallas phase kernels
-    (pallas/phases.py) where the cumsum primitive does not."""
+    reference's ascending-k loop (solver.f:864-878) bit-for-bit."""
     rows = [inc[0]]
     for k in range(1, inc.shape[0]):
         rows.append(rows[-1] + inc[k])

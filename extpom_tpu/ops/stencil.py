@@ -63,20 +63,10 @@ class DomainCtx:
     off_i: Any = 0               # global row offset of this block (traced)
     off_j: Any = 0
     windowed: bool = False       # arrays are overlapping halo WINDOWS of
-                                 # the global domain (pallas.phases,
-                                 # pallas.extwin, mesh.extchunk): region
+                                 # the global domain (mesh.extchunk): region
                                  # masks use global indices, shifts stay
                                  # local (progressive halo invalidation is
                                  # accounted for by the window trim)
-    edge_slice: bool = False     # windowed only: the window layout is
-                                 # pad-free AND edge windows are clamped to
-                                 # the domain boundary, so a global edge
-                                 # row i maps to local row i % W in the
-                                 # window that owns it — set_i can slice
-                                 # the full-field expression to one row
-                                 # (O(edge) instead of O(window) work; the
-                                 # region mask kills the wrong-row value in
-                                 # every other window)
 
     @property
     def local(self) -> bool:
@@ -143,9 +133,7 @@ S_1_M2 = slice(0, -2)    # 1..(n-2)
 def _shift1(a: jnp.ndarray, d: int, axis: int) -> jnp.ndarray:
     """Zero-padded shift along one axis: out[i] = a[i+d] (0 outside).
 
-    Implemented as slice + concatenate-with-zeros (not jnp.pad) so the same
-    expression lowers both through XLA and through Mosaic inside Pallas
-    kernels (pallas/extloop.py evaluates whole stencil substeps in VMEM)."""
+    Implemented as slice + concatenate-with-zeros (not jnp.pad)."""
     if d == 0:
         return a
     ax = axis % a.ndim
@@ -262,8 +250,7 @@ def mask_cache_pause():
     Required around ``lax.cond``/``lax.switch`` BRANCHES inside a cached
     trace: a mask created while tracing one branch is a value of that
     branch's (closed) jaxpr, and serving it from the cache to a later
-    sibling trace leaks it across scopes (surfacing as a Pallas
-    "kernel captures constants" error).  Masks cached OUTSIDE the
+    sibling trace leaks it across scopes.  Masks cached OUTSIDE the
     branches are ordinary closed-over values and keep being served;
     branch-local misses compute fresh and are NOT stored."""
     prev = getattr(_tls, "mask_cache_frozen", False)
@@ -366,12 +353,6 @@ def set_i(base: jnp.ndarray, i: int, val,
             n = ctx.im if ctx is not None else base.shape[-2]
             # broadcast-shaped expressions (size-1 i axis) read their row
             val = val[..., (i % n) if val.shape[-2] != 1 else 0, :]
-        elif ctx.windowed and ctx.edge_slice:
-            # edge windows are boundary-clamped: global row i lives at
-            # local row i % W in the window that owns it; elsewhere the
-            # region mask discards the (wrong-row) value
-            w = base.shape[-2]
-            val = val[..., (i % w) if val.shape[-2] != 1 else 0, :]
     return put(base, _expand(base, val, -2, i), *region)
 
 
@@ -388,10 +369,9 @@ def set_j(base: jnp.ndarray, j: int, val,
                         or (isinstance(ctx.off_j, int) and ctx.off_j == 0
                             and base.shape[-1] >= ctx.jm))))
     if val.ndim == base.ndim and j_whole:
-        # the j axis is not blocked here (the Pallas window kernels block
-        # only i; 2-D-windowed traces carry a traced off_j and are
-        # excluded), so the global column slicing applies — O(edge)
-        # column writes
+        # the j axis is not blocked here (2-D-windowed traces carry a
+        # traced off_j and are excluded), so the global column slicing
+        # applies — O(edge) column writes
         n = ctx.jm if ctx is not None else base.shape[-1]
         val = val[..., :, (j % n) if val.shape[-1] != 1 else 0]
     return put(base, _expand(base, val, -1, j), *region)
@@ -421,10 +401,10 @@ def row(a: jnp.ndarray, i: int) -> jnp.ndarray:
     the ACTIVE i extent.
 
     jnp lowers negative-literal indexing through ``dynamic_slice`` (it emits
-    a sign-normalization select), which Mosaic cannot lower inside Pallas
-    kernels; ``i % n`` resolves the index at trace time instead.  Not
-    available in shard_map local mode (a global-row read is a collective) —
-    express edge logic through :func:`sft` + :func:`set_i` instead."""
+    a sign-normalization select); ``i % n`` resolves the index at trace
+    time instead.  Not available in shard_map local mode (a global-row
+    read is a collective) — express edge logic through :func:`sft` +
+    :func:`set_i` instead."""
     ctx = _ctx()
     if ctx is not None and ctx.block:
         raise RuntimeError("row() reads a global row; not supported on "

@@ -91,8 +91,7 @@ def advt1(grid: Grid, cfg: Config,
     z3 = jnp.zeros_like(f)
 
     # ghost bottom layer (solver.f:495-496); positive static indices —
-    # negative value-indexing lowers through dynamic_slice, which Mosaic
-    # cannot lower inside the fused phase kernels
+    # negative value-indexing lowers through dynamic_slice
     f = set_k(f, -1, f[cfg.kb - 2])
     fb = set_k(fb, -1, fb[cfg.kb - 2])
 

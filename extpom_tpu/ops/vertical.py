@@ -10,7 +10,7 @@
 
 The Thomas forward elimination / back substitution is sequential in k but
 batched over the whole (im, jm) slab: each ``lax.scan`` step is one
-elementwise VPU op over the horizontal plane (k is the leading axis).
+elementwise op over the horizontal plane (k is the leading axis).
 """
 
 from __future__ import annotations
@@ -50,9 +50,7 @@ def _forward(a, c, den, r, ee0, gg0, k0, unroll: int = 1):
 
     n = a.shape[0] - k0
     if unroll >= n:
-        # full unroll: straight-line Python loop (identical association);
-        # avoids the scan primitive so the same code lowers through Mosaic
-        # inside the fused Pallas phase kernels
+        # full unroll: straight-line Python loop (identical association)
         ee, gg, ee_l, gg_l = ee0, gg0, [], []
         for k in range(k0, a.shape[0]):
             (ee, gg), _ = body((ee, gg), (a[k], c[k], den[k], r[k]))
@@ -65,7 +63,7 @@ def _forward(a, c, den, r, ee0, gg0, k0, unroll: int = 1):
             body, (ee0, gg0), (a[k0:], c[k0:], den[k0:], r[k0:]),
             unroll=min(unroll, n) if unroll > 1 else 1)
     kb = a.shape[0]
-    if k0 > 1:   # no zero-sized pad (Mosaic rejects 0-extent vectors)
+    if k0 > 1:   # no zero-sized pad
         pad = jnp.zeros((k0 - 1,) + ee0.shape, ee0.dtype)
         lead = [pad, ee0[None]], [pad, gg0[None]]
     else:
@@ -85,7 +83,7 @@ def _backward(ee, gg, f_last, k_last, unroll: int = 1):
         return fk, fk
 
     if unroll >= k_last:
-        # full unroll (see _forward): Mosaic-compatible straight-line code
+        # full unroll (see _forward)
         f, fs = f_last, []
         for k in range(k_last - 1, -1, -1):
             f = ee[k] * f + gg[k]
@@ -107,25 +105,20 @@ def _solve(cfg: Config, a, c, den, rhs, ee0, gg0, cl, rb, db, mask,
                     * mask,
 
     and back substitution to k=0 (each level * mask).  Returns the
-    (kb, im, jm) stack with rows > k_last zeroed.
-
-    Dispatches to the fused VMEM-resident Pallas kernel
-    (pallas.tridiag.thomas) on a single TPU; otherwise the XLA scan pair.
+    (kb, im, jm) stack with rows > k_last zeroed.  ``cfg.scan_unroll``
+    picks the sweeps: a ``lax.scan`` pair, or straight-line code when it
+    covers every level.
     """
-    from extpom_tpu.pallas import tridiag
-    if tridiag.use_pallas_tridiag(cfg):
-        return tridiag.thomas(cfg, a, c, den, rhs, ee0, gg0, cl, rb, db,
-                              mask, k0, k_last,
-                              interpret=jax.default_backend() != "tpu")
     kb = a.shape[0]
-    ee, gg = _forward(a, c, den, rhs, ee0, gg0, k0, cfg.scan_unroll)
-    f_last = ((cl * gg[k_last - 1] + rb)
-              / (cl * (1.0 - ee[k_last - 1]) + db))
-    f = _backward(ee, gg, f_last, k_last, cfg.scan_unroll) * mask
-    if k_last + 1 < kb:
-        f = jnp.concatenate(
-            [f, jnp.zeros((kb - k_last - 1,) + f.shape[1:], f.dtype)],
-            axis=0)
+    with jax.named_scope("thomas_solve"):
+        ee, gg = _forward(a, c, den, rhs, ee0, gg0, k0, cfg.scan_unroll)
+        f_last = ((cl * gg[k_last - 1] + rb)
+                  / (cl * (1.0 - ee[k_last - 1]) + db))
+        f = _backward(ee, gg, f_last, k_last, cfg.scan_unroll) * mask
+        if k_last + 1 < kb:
+            f = jnp.concatenate(
+                [f, jnp.zeros((kb - k_last - 1,) + f.shape[1:], f.dtype)],
+                axis=0)
     return f
 
 
@@ -376,8 +369,6 @@ def profq(grid: Grid, cfg: Config,
 
     # ---- q2l solve (solver.f:1415-1455) ----
     # (1, 1)-shaped level reads (z[k], not z[k, 0, 0]) broadcast identically
-    # and avoid vector-element extracts Mosaic cannot lower in the fused
-    # phase kernels
     q2lf = set_k(set_k(q2lf, 0, 0.0), kb - 1, 0.0)
     ee1 = jnp.zeros_like(h)
     gg1 = -cfg.kappa * z[1] * dh * q2[1]

@@ -23,9 +23,10 @@ Config schema (all keys optional unless noted)::
       #    or a reference-format .nc series file, io/netcdf.py)
       "config": {"mode": 3, "dte": 6.0, "days": 1.0, ...},
       "out_dir": "out",
-      "out_format": "zarr" | "nc",           # snapshot format (default
-      #   zarr; "nc" writes reference-layout NetCDF files via
-      #   io/netcdf.py — restart checkpoints stay Zarr, bit-seamless)
+      "out_format": "zarr" | "nc",           # snapshot and restart format
+      #   (default zarr, through tensorstore; "nc" writes reference-layout
+      #   NetCDF files via io/netcdf.py, which needs only scipy: one
+      #   snapshot stream {run}.nc and restarts {run}.rst.NNNNNN.nc)
       "nread_rst": 0, "read_rst_path": "out/run.rst.0003",
       #   (a read_rst_path ending in .nc resumes from a reference-format
       #    restart file, io/netcdf.py:read_restart_nc)
@@ -33,9 +34,9 @@ Config schema (all keys optional unless noted)::
       # -- parallel execution (distribute_mpi analogue) --
       "mesh": {"px": 2, "py": 4, "mode": "shardmap" | "gspmd"},
       #   shardmap (default): explicit ppermute halo exchange, chunked
-      #   halo-ring external loop, mesh-composed Pallas phase kernels,
-      #   and whole-segment scans; gspmd: let the XLA SPMD partitioner
-      #   insert the halo collectives (slower; kept for comparison)
+      #   halo-ring external loop and whole-segment scans; gspmd: let the
+      #   XLA SPMD partitioner insert the halo collectives (refused on a
+      #   mesh of several GPUs, where it computes wrong fields)
       # multi-process: every process runs the same config; process_id /
       # num_processes default to JAX_PROCESS_ID / JAX_NUM_PROCESSES env
       "distributed": {"coordinator": "host:1234",
@@ -147,11 +148,8 @@ def build_model(conf: dict):
         from extpom_tpu.mesh.sharding import make_mesh
         mk = conf["mesh"]
         mesh = make_mesh(int(mk["px"]), int(mk["py"]))
-        # default shardmap: the explicit ppermute path holds 46-90 % of
-        # same-grid 1-device throughput on the virtual mesh vs GSPMD's
-        # 13-27 % (WEAKSCALING.md), composes with the Pallas fast paths
-        # (pallas.phases.mesh_runner), and scans whole segments in one
-        # dispatch (mesh.shardmap.make_shardmap_run)
+        # default shardmap: explicit halo exchanges, and whole segments
+        # scanned in one dispatch (mesh.shardmap.make_shardmap_run)
         m.shard(mesh, mode=mk.get("mode", "shardmap"))
     return m
 
@@ -159,6 +157,7 @@ def build_model(conf: dict):
 def main(argv=None):
     from extpom_tpu.diag import stats as diag_stats
     from extpom_tpu.io import zarrstore as zio
+    from extpom_tpu.utils.cache import enable_compile_cache
 
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
@@ -175,6 +174,7 @@ def main(argv=None):
         init_distributed(dk.get("coordinator"), dk.get("num_processes"),
                          dk.get("process_id"))
     import jax
+    enable_compile_cache()
     master = jax.process_index() == 0
 
     m = build_model(conf)
@@ -198,22 +198,9 @@ def main(argv=None):
     _print(f"  CFL advisory: min dt_ext = {float(cfl_min(m.grid, cfg)):.2f} s"
            f" (dte = {cfg.dte} s)")
 
-    # dispatch echo: say which machine each component got (the loud
-    # counterpart of the reference's startup geometry validation,
-    # parallel_mpi.f:45-74 — a silent fallback cost round 4 its flagship
-    # configuration, VERDICT r4)
-    from extpom_tpu.core.dispatch import (dispatch_report, format_report,
-                                          warn_unhonored)
-    mk = conf.get("mesh") or {}
-    rep = dispatch_report(cfg, px=int(mk.get("px", 1)),
-                          py=int(mk.get("py", 1)),
-                          mode=(mk.get("mode", "shardmap")
-                                if mk else None))
-    _print("dispatch:")
-    _print(format_report(rep))
-    warn = warn_unhonored(cfg, rep)
-    if warn:
-        _print(f"  WARNING: {warn}")
+    dev = jax.devices()[0]
+    _print(f"  device = {dev.platform} {dev.device_kind} "
+           f"x{len(jax.devices())}")
 
     # Segment execution (the production fast path): when forcing is
     # provider-backed (or static), whole print/restart intervals run under
@@ -236,6 +223,13 @@ def main(argv=None):
     submit = (writer.submit if writer is not None
               else (lambda fn, *a, **k: fn(*a, **k)))
 
+    out_nc = conf.get("out_format", "zarr") == "nc"
+    if out_nc and jax.process_count() > 1:
+        # the NetCDF-3 writer fetches whole arrays (no cooperative shard
+        # writes — use zarr + io.netcdf CLI conversion)
+        raise RuntimeError(
+            "out_format='nc' is single-process only; write zarr and "
+            "convert via python -m extpom_tpu.io.netcdf")
     n_out = 0
     t0 = _time.time()
     while m.iint < cfg.iend:
@@ -270,15 +264,7 @@ def main(argv=None):
                    f"taver = {s['taver']:.7e}  saver = {s['saver']:.7e}")
             n_out += 1
             extra = {"wr": m.compute_wr()} if cfg.calc_wr else None
-            if conf.get("out_format", "zarr") == "nc":
-                # single-process only: the NetCDF-3 writer fetches whole
-                # arrays (no cooperative shard writes — use zarr +
-                # io.netcdf CLI conversion for multi-process runs)
-                if jax.process_count() > 1:
-                    raise RuntimeError(
-                        "out_format='nc' is single-process only; write "
-                        "zarr and convert via python -m extpom_tpu.io."
-                        "netcdf")
+            if out_nc:
                 from extpom_tpu.io.netcdf import write_output_nc
                 # one output stream per run, snapshots as records — the
                 # reference's iout record writes (io_pnetcdf.F:180-410);
@@ -292,9 +278,14 @@ def main(argv=None):
                        os.path.join(out_dir, f"{run}.{m.iint:06d}"),
                        m.grid, cfg, m.state, m.time_days, s, extra=extra)
         if m.iint % cfg.irestart == 0:
-            submit(zio.write_restart,
-                   os.path.join(out_dir, f"{run}.rst.{m.iint:06d}"),
-                   m.state, m.iint, m.time0)
+            rst = os.path.join(out_dir, f"{run}.rst.{m.iint:06d}")
+            if out_nc:
+                # the reference's restart layout (io/netcdf.py); resume
+                # restarts the step count at the file's time
+                from extpom_tpu.io.netcdf import write_restart_nc
+                submit(write_restart_nc, rst + ".nc", m.state, m.time_days)
+            else:
+                submit(zio.write_restart, rst, m.state, m.iint, m.time0)
     if writer is not None:
         writer.close()            # drain the last interval's writes
     mode_s = ("scanned segments + async writes" if use_segments

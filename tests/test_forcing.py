@@ -112,36 +112,6 @@ def test_chunked_staging_matches_full():
         np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=name)
 
 
-def test_chunked_staging_with_pallas_fast_paths():
-    """Round-4 config-3-at-scale composition (VERDICT r3 #4): chunked
-    DevicePlan staging + the fused Pallas phase kernels + the halo-window
-    external kernel, together in one forced channel run, must match the
-    plain XLA run (interpret mode off-TPU)."""
-    import numpy as np
-    from extpom_tpu.cases.channel import channel_model
-
-    kw = dict(im=32, jm=16, kb=7, isplit=6, dtype="float64")
-    m1 = channel_model(**kw)
-    for n in (4, 4):
-        m1.run_segment(n)
-
-    m2 = channel_model(**kw, forcing_hbm_mb=0,       # windowed staging
-                       pallas_phases="on", phase_block=8, phase_halo=8,
-                       pallas_ext="off", pallas_extwin="on",
-                       extwin_chunk=2)
-    from extpom_tpu.pallas.extwin import use_pallas_extwin
-    from extpom_tpu.pallas.phases import use_pallas_phases
-    assert use_pallas_extwin(m2.cfg) and use_pallas_phases(m2.cfg)
-    for n in (4, 4):
-        m2.run_segment(n)
-
-    for name in ("el", "ua", "va", "u", "t", "s", "q2"):
-        a = np.asarray(getattr(m1.state, name))
-        b = np.asarray(getattr(m2.state, name))
-        tol = 1e-11 * max(1.0, float(np.abs(a).max()))
-        np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=name)
-
-
 def test_multisource_merge_and_native_interp_protocol():
     """MultiSource (forcing/provider.py): ownership resolved once at
     construction, duplicate names loud, and the fused-interp protocol —

@@ -225,3 +225,11 @@ def test_netcdf_restart_interchange(tmp_path):
         a = np.asarray(getattr(mz.state, name))
         b = np.asarray(getattr(mn.state, name))
         np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_zarr_without_tensorstore_says_so(tmp_path, monkeypatch):
+    """Where tensorstore is missing, Zarr I/O fails with an error that
+    names the package and the NetCDF alternative."""
+    monkeypatch.setattr(zio, "_tensorstore", None)
+    with pytest.raises(RuntimeError, match="tensorstore.*out_format"):
+        zio.write_array(str(tmp_path), "x", np.zeros(3))

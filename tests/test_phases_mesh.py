@@ -1,11 +1,10 @@
-"""Fused phase kernels composed with the shard_map mesh (round-4 closure
-of the one-machine split, VERDICT r3 #1): the SAME windowed Pallas phase
-kernels (pallas/phases.py) run on halo-ring-extended local blocks
-(pallas.phases.mesh_runner) and must reproduce the single-device XLA
-path exactly — the analogue of the reference's single communication
-layer serving every kernel (parallel_mpi.f:154-351).
+"""Every internal-mode phase under the shard_map mesh: the explicit
+ppermute step (mesh.shardmap), with the chunked halo-ring external loop
+(mesh.extchunk), must reproduce the single-device path exactly — the
+analogue of the reference's single communication layer serving every
+kernel (parallel_mpi.f:154-351).
 
-Runs in interpret mode on the 8-virtual-device CPU mesh at float64.
+Runs on the 8-virtual-device CPU mesh at float64.
 """
 
 import numpy as np
@@ -21,9 +20,6 @@ from extpom_tpu.mesh.shardmap import make_shardmap_step, shard_args
 CHECK = ("el", "ua", "va", "u", "v", "w", "t", "s", "rho",
          "q2", "q2l", "km", "kh", "l", "wubot", "wvbot")
 
-PHASE_KW = dict(pallas_phases="on", phase_block=8, phase_halo=8,
-                pallas_ext="off")
-
 
 def _run_ref(n=3, **kw):
     ref = seamount_model(dtype="float64", donate=False, **kw)
@@ -33,7 +29,7 @@ def _run_ref(n=3, **kw):
 
 
 def _run_mesh(mesh, n=3, **kw):
-    m = seamount_model(dtype="float64", donate=False, **{**PHASE_KW, **kw})
+    m = seamount_model(dtype="float64", donate=False, **kw)
     step_fn = make_shardmap_step(mesh, m.grid, m.cfg, m.base_forcing)
     grid_s, st, _, rmean_s, tclim_s, sclim_s = shard_args(
         mesh, m.cfg, m.grid, m.state, m.base_forcing,
@@ -62,7 +58,8 @@ def _compare(ref_st, st, tol=1e-10):
     dict(npg=2),                  # McCalpin 4th-order PG in the lat phase
 ])
 def test_mesh_phases_match_single_device(kw):
-    """All five test_phases.py config variants, on a 2x4 mesh."""
+    """Boundary schemes, frozen T/S, MPDATA and the 4th-order pressure
+    gradient, on a 2x4 mesh."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
     base = dict(im=32, jm=64, kb=7, isplit=6)
@@ -75,7 +72,7 @@ def test_mesh_phases_match_single_device(kw):
 @pytest.mark.parametrize("px,py", [(4, 2), (1, 8), (8, 1)])
 def test_mesh_phases_mesh_shapes(px, py):
     """x-only, y-only, and tall decompositions: ring widths collapse to 0
-    on un-split axes and the window geometry adapts to the local extent."""
+    on un-split axes."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
     base = dict(im=64, jm=64, kb=7, isplit=6)
@@ -140,99 +137,12 @@ def test_shardmap_segment_scan_channel_deviceplan():
     _compare(ref.state, m.state)
 
 
-def test_shardmap_segment_scan_with_mesh_phases():
-    """Segment scan + mesh-composed Pallas phase kernels together: the
-    full round-4 fast path (ring exchanges and windowed kernels inside
-    lax.scan inside shard_map) against the plain single-device scan."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices")
-    from extpom_tpu.mesh.sharding import make_mesh
-    kw = dict(im=32, jm=64, kb=7, isplit=6, dtype="float64", donate=False)
-    ref = seamount_model(**kw)
-    ref.run_segment(3)
-    m = seamount_model(**kw, **PHASE_KW)
-    m.shard(make_mesh(2, 4), mode="shardmap")
-    m.run_segment(3)
-    _compare(ref.state, m.state)
-
-
-@pytest.mark.parametrize("px,py", [(2, 4), (1, 8)])
-def test_mesh_pallas_ext_chunk(px, py):
-    """pallas_ext='on' under shard_map dispatches the VMEM-resident chunk
-    kernel (pallas.extloop.run_external_chunk_vmem) inside the chunked
-    halo-ring external loop — the external-mode analogue of the phase
-    composition.  Must match the single-device run exactly."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices")
-    base = dict(im=32, jm=64, kb=7, isplit=6)
-    ref = _run_ref(n=2, **base)
-    st = _run_mesh(make_mesh(px, py), n=2, **{**base,
-                                             "pallas_phases": "off",
-                                             "pallas_ext": "on"})
-    _compare(ref.state, st)
-
-
-def test_mesh_full_fast_path():
-    """Phases + external chunk kernels together under the shard_map
-    segment scan: the complete round-4 one-machine configuration."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices")
-    from extpom_tpu.mesh.sharding import make_mesh
-    kw = dict(im=32, jm=64, kb=7, isplit=6, dtype="float64", donate=False)
-    ref = seamount_model(**kw)
-    ref.run_segment(3)
-    m = seamount_model(**kw, pallas_phases="on", phase_block=8,
-                       phase_halo=8, pallas_ext="on")
-    m.shard(make_mesh(2, 4), mode="shardmap")
-    m.run_segment(3)
-    _compare(ref.state, m.state)
-
-
-def test_mesh_phases_dispatch_gate():
-    """use_pallas_phases_mesh accepts the geometries the tests above run
-    and rejects blocks too small for one window."""
-    from extpom_tpu.core.config import Config
-    from extpom_tpu.ops.stencil import DomainCtx
-    from extpom_tpu.pallas.phases import use_pallas_phases_mesh
-
-    cfg = Config(im=32, jm=64, kb=7, **PHASE_KW)
-    ctx = DomainCtx(im=32, jm=64, axis_x="x", axis_y="y", px=2, py=4)
-    assert use_pallas_phases_mesh(cfg, ctx, (16, 16))
-    # 8-row local block: rows = 8 + 16 = 24 < Bi + 2H = 24 is OK, but a
-    # 4-row block is not 8-aligned after extension
-    assert not use_pallas_phases_mesh(cfg, ctx, (4, 16))
-    # global/windowed contexts never dispatch the mesh variant
-    assert not use_pallas_phases_mesh(cfg, None, (16, 16))
-    assert not use_pallas_phases_mesh(
-        cfg, DomainCtx(im=32, jm=64, windowed=True), (16, 16))
-
-
-def test_mesh_phases_config5_lane_geometry():
-    """kb=41 with a >=512-lane local block — the config-5 per-chip LANE
-    geometry (1024x512x41 under the blessed 2x4 mesh), scaled down only
-    in im.  Round 4's worst-phase VMEM model returned Bi=0 exactly here
-    and silently fell back to the XLA path (VERDICT r4 Missing #1); the
-    per-phase model must keep every phase on the windowed kernels AND
-    reproduce the single-device trace."""
+def test_shardmap_config5_column_depth():
+    """kb=41, the vertical extent of configs/config5_2048.json, on a 1x2
+    mesh against the single-device trace."""
     if len(jax.devices()) < 2:
         pytest.skip("needs 2 devices")
-    from extpom_tpu.core.config import Config
-    from extpom_tpu.ops.stencil import DomainCtx
-    from extpom_tpu.pallas.phases import (PHASES, feasible_phases,
-                                          mesh_ring_halos,
-                                          use_pallas_phases_mesh)
-
-    base = dict(im=32, jm=1024, kb=41, isplit=2, dte=4.0)
-    cfg = Config(**base, **{k: v for k, v in PHASE_KW.items()
-                            if k != "pallas_ext"}, dtype="float64")
-    ctx = DomainCtx(im=32, jm=1024, axis_x="x", axis_y="y", px=1, py=2)
-    hx, hy = mesh_ring_halos(cfg, ctx)
-    lanes = 512 + 2 * hy
-    assert lanes >= 512
-    assert use_pallas_phases_mesh(cfg, ctx, (32, 512))
-    assert feasible_phases(cfg, rows=32 + 2 * hx, lanes=lanes) \
-        == list(PHASES)
-
+    base = dict(im=32, jm=64, kb=41, isplit=2, dte=4.0)
     ref = _run_ref(n=1, **base)
     st = _run_mesh(make_mesh(1, 2), n=1, **base)
     _compare(ref.state, st)

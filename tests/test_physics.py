@@ -28,8 +28,7 @@ def _sym_model(n_steps, im=33, jm=33, kb=7, mode=3):
     rest: the solution must stay mirror-symmetric in BOTH horizontal
     directions for all time."""
     cfg = Config(im=im, jm=jm, kb=kb, mode=mode, dte=6.0, isplit=6,
-                 dtype="float64", bc_scheme="orlanski", lramp=False,
-                 pallas_ext="off")
+                 dtype="float64", bc_scheme="orlanski", lramp=False)
     z, zz = sigma_levels(kb)
     dx0 = 8000.0
     x = (np.arange(im) - (im - 1) / 2.0)[:, None] * dx0
@@ -107,8 +106,7 @@ def test_gravity_wave_phase_speed():
     depth = 100.0
     dx0 = 1000.0
     cfg = Config(im=im, jm=jm, kb=kb, mode=2, dte=2.0, isplit=5,
-                 dtype="float64", bc_scheme="orlanski", lramp=False,
-                 pallas_ext="off")
+                 dtype="float64", bc_scheme="orlanski", lramp=False)
     z, zz = sigma_levels(kb)
     fsm = np.ones((im, jm))
     fsm[:, 0] = fsm[:, -1] = 0.0     # channel walls
@@ -152,8 +150,7 @@ def test_geostrophic_balance_persists():
     f0 = 1.0e-4
     u0 = 0.5
     cfg = Config(im=im, jm=jm, kb=kb, mode=2, dte=6.0, isplit=6,
-                 dtype="float64", bc_scheme="file", lramp=False,
-                 pallas_ext="off")
+                 dtype="float64", bc_scheme="file", lramp=False)
     z, zz = sigma_levels(kb)
     fsm = np.ones((im, jm))
     fsm[:, 0] = fsm[:, -1] = 0.0
@@ -188,7 +185,7 @@ def test_internal_wave_phase_speed():
     dx0 = 1000.0
     cfg = Config(im=im, jm=jm, kb=kb, mode=3, dte=8.0, isplit=30,
                  dtype="float64", bc_scheme="orlanski", lramp=False,
-                 smoth=0.1, pallas_ext="off")
+                 smoth=0.1)
     z, zz = sigma_levels(kb)
     fsm = np.ones((im, jm))
     fsm[:, 0] = fsm[:, -1] = 0.0     # channel walls
@@ -262,8 +259,7 @@ def test_kelvin_wave_speed_and_direction():
     f0 = 5.0e-4      # R = sqrt(gH)/f ~ 63 km = 12.5 cells: trapped well
                      # inside the 165 km channel
     cfg = Config(im=im, jm=jm, kb=kb, mode=2, dte=10.0, isplit=5,
-                 dtype="float64", bc_scheme="orlanski", lramp=False,
-                 pallas_ext="off")
+                 dtype="float64", bc_scheme="orlanski", lramp=False)
     z, zz = sigma_levels(kb)
     fsm = np.ones((im, jm))
     fsm[:, 0] = fsm[:, -1] = 0.0
@@ -364,8 +360,7 @@ def test_mpdata_monotonicity():
     dx0 = 1000.0
     depth = 100.0
     cfg = Config(im=im, jm=jm, kb=kb, mode=3, nadv=2, nitera=2, sw=0.5,
-                 dte=4.0, isplit=5, dtype="float64", tprni=0.0,
-                 pallas_ext="off")
+                 dte=4.0, isplit=5, dtype="float64", tprni=0.0)
     z, zz = sigma_levels(kb)
     fsm = np.ones((im, jm))
     fsm[0] = fsm[-1] = fsm[:, 0] = fsm[:, -1] = 0.0
@@ -447,7 +442,7 @@ def test_seamount_sigma_pg_error():
 
     cfg, grid, ics = seamount_case(
         im=33, jm=33, kb=21, vel=0.0, mode=4, dtype="float64",
-        lramp=False, pallas_ext="off", bc_scheme="orlanski")
+        lramp=False, bc_scheme="orlanski")
     tb, sb = ics["tb"], ics["sb"]
     tclim_flat = np.full_like(tb, float(tb.mean()))
 

@@ -258,3 +258,36 @@ def test_cli_nc_forcing_matches_zarr(tmp_path):
         tol = 1e-13 * max(1.0, float(np.abs(a[v]).max()))
         np.testing.assert_allclose(a[v], b[v], rtol=0, atol=tol,
                                    err_msg=v)
+
+
+def test_cli_nc_restart_and_resume(tmp_path):
+    """out_format='nc' writes restarts in the reference layout too
+    (io/netcdf.py, scipy only), and a run resumes from one."""
+    from extpom_tpu.io import netcdf as ncio
+    conf = {
+        "run_name": "ncr",
+        "case": "seamount",
+        "case_args": {"im": 17, "jm": 17, "kb": 7},
+        "config": {"days": 0.0125, "prtd1": 0.00625, "write_rst": 0.00625,
+                   "dtype": "float64"},
+        "out_dir": str(tmp_path / "out"),
+        "out_format": "nc",
+    }
+    cpath = tmp_path / "conf.json"
+    cpath.write_text(json.dumps(conf))
+    assert main([str(cpath)]) == 0
+    outs = sorted(os.listdir(tmp_path / "out"))
+    assert outs == ["ncr.nc", "ncr.rst.000003.nc", "ncr.rst.000006.nc"], outs
+
+    from extpom_tpu.cases.seamount import seamount_case
+    cfg, _, _ = seamount_case(im=17, jm=17, kb=7, dtype="float64")
+    st, iint, time0 = ncio.read_restart_nc(
+        str(tmp_path / "out" / "ncr.rst.000006.nc"), cfg)
+    assert iint == 0 and abs(time0 - 6 * 180.0 / 86400.0) < 1e-12
+    assert np.isfinite(np.asarray(st.t)).all()
+
+    conf["nread_rst"] = 1
+    conf["read_rst_path"] = str(tmp_path / "out" / "ncr.rst.000003.nc")
+    conf["out_dir"] = str(tmp_path / "out2")
+    cpath.write_text(json.dumps(conf))
+    assert main([str(cpath)]) == 0

@@ -110,21 +110,6 @@ def test_shardmap_chunked_vs_per_read_exchange():
     _compare(ref.state, st_per)
 
 
-def test_shardmap_pallas_tridiag():
-    """pallas_tridiag='on' under shard_map: the fused Thomas kernel is
-    horizontally pointwise, so it must run unchanged on local blocks
-    (interpret mode on the CPU mesh) — the composition VERDICT r2 flagged
-    as force-disabled."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices")
-    kw = dict(im=32, jm=64, kb=7)
-    ref = _run_ref(**kw)
-    m = seamount_model(dtype="float64", donate=False,
-                       pallas_tridiag="on", **kw)
-    st = _run_shardmap(m, make_mesh(2, 4))
-    _compare(ref.state, st)
-
-
 def test_shardmap_file_bc_scheme():
     """bc_scheme='file' exercises bc_vel3d's smoothing + hmax blend and
     bc_el/bc_ts/bc_turb full-array edge writes under shard_map."""
@@ -151,36 +136,11 @@ def test_shardmap_orlanski_scheme():
     _compare(ref.state, st)
 
 
-@pytest.mark.parametrize("px,py", [(2, 4), (1, 8)])
-def test_shardmap_windowed_chunk_body(px, py):
-    """The striped window kernel as the chunk body (round 5:
-    pallas.extwin.run_external_chunk_windowed — the plain path's
-    large-grid external machine composed with the mesh, serving local
-    blocks too big for the whole-block VMEM chunk kernel).  Forced via
-    pallas_extwin='on' (+ pallas_ext='off' so the VMEM body stands
-    aside); interpret mode on the CPU mesh; must match the single-device
-    oracle bit-for-bit at the shardmap gate.  (1, 8): y-only split —
-    no x ring, windows stripe the un-split row extent."""
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 devices")
-    kw = dict(im=32, jm=64, kb=7)
-    ref = _run_ref(n=2, **kw)
-    m = seamount_model(dtype="float64", donate=False,
-                       pallas_ext="off", pallas_extwin="on", **kw)
-    from extpom_tpu.mesh.extchunk import chunk_plan
-    from extpom_tpu.ops.stencil import DomainCtx
-    ctx = DomainCtx(im=32, jm=64, axis_x="x", axis_y="y", px=px, py=py)
-    plan = chunk_plan(m.cfg, ctx, 32 // px, 64 // py)
-    assert plan[6], f"win body must dispatch here, got {plan}"
-    st = _run_shardmap(m, make_mesh(px, py), n=2)
-    _compare(ref.state, st)
-
-
 def test_shardmap_trivial_1x1_dispatch():
     """At a 1x1 mesh the shard_map body dispatches the GLOBAL machine by
     default (trivial_shardmap='auto': the local block is the whole
-    domain, so the traced-offset masks / O(volume) edge writes / mesh
-    kernel variants are pure overhead — the n_proc=1 degenerate case of
+    domain, so the traced-offset masks and O(volume) edge writes are
+    pure overhead — the n_proc=1 degenerate case of
     exchange2d_mpi, parallel_mpi.f:154-351).  Both settings must match
     the plain single-device run exactly."""
     kw = dict(im=32, jm=64, kb=7)
@@ -194,10 +154,3 @@ def test_shardmap_trivial_1x1_dispatch():
                         trivial_shardmap="local", **kw)
     st_local = _run_shardmap(m2, make_mesh(1, 1))
     _compare(ref.state, st_local)
-
-    # the dispatch echo reflects the specialization
-    from extpom_tpu.core.dispatch import dispatch_report
-    rep = dispatch_report(m1.cfg, px=1, py=1, mode="shardmap")
-    assert "global machine" in rep["mesh"]["mode"]
-    rep_l = dispatch_report(m2.cfg, px=1, py=1, mode="shardmap")
-    assert rep_l["mesh"]["mode"] == "shardmap"

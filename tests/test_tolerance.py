@@ -1,6 +1,6 @@
 """f32-vs-f64 tolerance ladder (SURVEY §7 hard-parts bullet).
 
-Correctness tests elsewhere run float64; production (bench, every TPU
+Correctness tests elsewhere run float64; production (bench, every GPU
 run, the config-5 JSON) runs float32.  These tests bound the f32 drift of
 the SAME code on the SAME machine (CPU backend, both dtypes) over an
 N-step flagship run, so every published f32 perf number has a tested
@@ -63,7 +63,7 @@ def test_tolerance_ladder_seamount():
 
     def make(dtype):
         return seamount_model(im=33, jm=33, kb=11, dtype=dtype,
-                              donate=False, pallas_ext="off")
+                              donate=False)
 
     rel, srel = _drift(make, 60)
     for name, bound in _SEAMOUNT_BOUNDS.items():
@@ -82,8 +82,7 @@ def test_tolerance_ladder_channel():
     from extpom_tpu.cases.channel import channel_model
 
     def make(dtype):
-        return channel_model(im=32, jm=24, kb=7, dtype=dtype,
-                             pallas_ext="off")
+        return channel_model(im=32, jm=24, kb=7, dtype=dtype)
 
     rel, srel = _drift(make, 40)
     for name, bound in _CHANNEL_BOUNDS.items():

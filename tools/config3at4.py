@@ -2,15 +2,14 @@
 
 Runs the tidal channel — time-varying lateral boundary forcing served
 through the (optionally chunked) DevicePlan — at 512x512x31 f32 on the
-attached chip with the Pallas fast paths on, in scanned segments.  This
+attached GPU, in scanned segments.  This
 is the production configuration of the reference (file-driven lateral
 BCs refreshed inside the time loop, bounds_forcing.f:593-868 +
-advance.f:78-93) at BASELINE config-4 scale; the round-3 verdict flagged
-that no at-scale perf number existed for it.
+advance.f:78-93) at BASELINE config-4 scale.
 
 Usage: python tools/config3at4.py [--steps 150] [--segment 50]
                                   [--hbm-mb 0]   # 0 = force chunked staging
-Prints one JSON line (ms/step vs the unforced config-4 number).
+Prints one JSON line (ms/step).
 """
 
 import argparse
@@ -23,9 +22,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_extpom"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from extpom_tpu.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 import numpy as np
 
@@ -48,12 +47,8 @@ def main():
 
     m = channel_model(im=args.im, jm=args.jm, kb=args.kb,
                       forcing_hbm_mb=args.hbm_mb)
-    from extpom_tpu.pallas import extloop, phases
-    dispatch = dict(
-        pallas_ext=bool(extloop.use_pallas_ext(m.cfg)),
-        pallas_phases=bool(phases.use_pallas_phases(m.cfg)),
-        chunked_staging=bool(plan_bytes(m.forcing_fn)
-                             > m.cfg.forcing_hbm_mb * 2 ** 20))
+    chunked_staging = bool(plan_bytes(m.forcing_fn)
+                           > m.cfg.forcing_hbm_mb * 2 ** 20)
 
     m.run_segment(args.segment)
     jax.block_until_ready(m.state.el)
@@ -76,7 +71,7 @@ def main():
         "config": f"channel {args.im}x{args.jm}x{args.kb} f32 with "
                   "time-varying lateral BCs (config-3 physics at "
                   "config-4 size)",
-        "dispatch": dispatch,
+        "chunked_staging": chunked_staging,
         "steps_timed": m.iint - warm,
         "ms_per_step": dt * 1e3,
         "grid_pt_steps_per_s": args.im * args.jm * args.kb / dt,

@@ -1,6 +1,6 @@
 """BASELINE config 4: regional basin 512x512x31 with restart I/O.
 
-Runs the full 3-D mode-split core at 512x512x31 f32 on the attached chip
+Runs the full 3-D mode-split core at 512x512x31 f32 on the attached GPU
 in scanned segments, writing Zarr output + restart at the reference's
 cadence pattern (write_output/write_restart, advance.f:38-49), then proves
 bit-seamless resume from the written restart.
@@ -20,9 +20,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_extpom"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from extpom_tpu.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 import numpy as np
 
@@ -34,7 +34,6 @@ def main():
     ap.add_argument("--im", type=int, default=512)
     ap.add_argument("--kb", type=int, default=31)
     ap.add_argument("--out", default="/tmp/extpom_config4")
-    ap.add_argument("--tridiag", default="auto")
     ap.add_argument("--async-io", action="store_true",
                     help="write snapshots/restarts on a background "
                          "thread (io.asyncwriter): interval N+1 computes "
@@ -50,8 +49,7 @@ def main():
 
     im = jm = args.im
     kb = args.kb
-    m = seamount_model(im=im, jm=jm, kb=kb, donate=False,
-                       pallas_tridiag=args.tridiag)
+    m = seamount_model(im=im, jm=jm, kb=kb)
     m.run_segment(args.segment)          # compile first-step variant
     jax.block_until_ready(m.state.el)
     m.run_segment(args.segment)          # compile + warm steady variant

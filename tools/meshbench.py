@@ -1,20 +1,18 @@
-"""On-chip throughput of the shard_map path vs the plain single-device
-path — the round-4 "one machine" gate (VERDICT r3 #1: a shard_map(1x1)
-TPU run within 10 % of the single-device bench).
+"""Throughput of the shard_map path vs the plain single-device path on
+one card: the price of the explicit mesh machinery.
 
 Usage: python tools/meshbench.py [--im 256] [--jm 256] [--kb 31]
        [--steps 50] [--modes plain,shardmap]
 
---im 1024 --jm 512 --kb 41 measures the config-5 PER-CHIP tile (the
-2048^2x41 run decomposed 2x4, configs/config5_2048.json) on one chip
+--im 1024 --jm 512 --kb 41 measures the config-5 PER-CARD tile (the
+2048^2x41 run decomposed 2x4, configs/config5_2048.json) on one card
 under shard_map(1x1) — the reference's per-rank workload (pom.sh:1 +
-pom.h_dist:22-28) with no analogue number in the repo before round 5.
+pom.h_dist:22-28).
 
 Runs the seamount 3-D core (the bench.py configuration) twice on the
-attached device: plain (global arrays, Pallas fast paths) and
-shard_map(1x1) (explicit-path machinery: chunked halo-ring external loop
-with the VMEM Pallas chunk kernel, mesh-composed Pallas phase kernels,
-whole-segment scan inside the shard_map body).
+attached device: plain (global arrays) and shard_map(1x1) (explicit-path
+machinery: chunked halo-ring external loop, whole-segment scan inside
+the shard_map body).
 """
 
 import argparse
@@ -27,9 +25,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_extpom"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from extpom_tpu.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 
 def measure(im, jm, kb, n, mesh_mode, trivial="local"):
@@ -37,11 +35,9 @@ def measure(im, jm, kb, n, mesh_mode, trivial="local"):
     from extpom_tpu.mesh.sharding import make_mesh
 
     # trivial_shardmap="local" keeps the explicit local-ctx machinery at
-    # the 1x1 mesh — this tool's purpose is to price the mesh-variant
-    # overhead on one chip; the production default ("auto") dispatches
-    # the global machine at 1x1 and measures ~1.0 by construction
-    m = seamount_model(im=im, jm=jm, kb=kb, donate=False,
-                       trivial_shardmap=trivial)
+    # the 1x1 mesh — this tool's purpose is to price it on one card; the
+    # production default ("auto") runs the global machine at 1x1
+    m = seamount_model(im=im, jm=jm, kb=kb, trivial_shardmap=trivial)
     if mesh_mode:
         m.shard(make_mesh(1, 1), mode=mesh_mode)
     m.run_segment(n)
@@ -69,15 +65,9 @@ def main():
     args = ap.parse_args()
     jm = args.jm or args.im
 
-    from extpom_tpu.core.config import Config
-    from extpom_tpu.core.dispatch import dispatch_report, format_report
     rows = {}
     for name in args.modes.split(","):
         mode = None if name == "plain" else name
-        rep = dispatch_report(
-            Config(im=args.im, jm=jm, kb=args.kb,
-                   trivial_shardmap=args.trivial), mode=mode)
-        print(f"{name} dispatch:\n{format_report(rep)}", flush=True)
         gps, spstep = measure(args.im, jm, args.kb, args.steps, mode,
                               trivial=args.trivial)
         rows[name] = dict(gps=gps, ms_per_step=spstep * 1e3)

@@ -1,4 +1,4 @@
-"""Decompose full-step time into phases on the attached chip.
+"""Decompose full-step time into phases on the attached GPU.
 
 Times jitted sub-functions (external loop only / internal pieces) at a
 given size.  Dispatch overhead inflates small pieces; treat as indicative.
@@ -15,11 +15,10 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_extpom"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from extpom_tpu.utils.cache import enable_compile_cache
+
+enable_compile_cache()
 
 
 def timeit(name, f, *args, n=50):
@@ -64,7 +63,6 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--kb", type=int, default=31)
-    ap.add_argument("--pallas", default="auto")
     args = ap.parse_args()
 
     from extpom_tpu.cases.seamount import seamount_model
@@ -72,8 +70,7 @@ def main():
     from extpom_tpu.ops import momentum, tracers, vertical, pressure, \
         continuity, density
 
-    m = seamount_model(im=args.size, jm=args.size, kb=args.kb,
-                       donate=False, pallas_ext=args.pallas)
+    m = seamount_model(im=args.size, jm=args.size, kb=args.kb)
     grid, cfg, st = m.grid, m.cfg, m.state
     fc = m.forcing_at(1)
     dt2 = grid.h + st.et
@@ -90,9 +87,6 @@ def main():
 
     @jax.jit
     def ext_loop(c0):
-        from extpom_tpu.pallas import extloop
-        if extloop.use_pallas_ext(cfg):
-            return extloop.run_external_loop(grid, cfg, c0, fc, aux)
         body = lambda i, c: stepper.mode_external_substep(grid, cfg, c, i,
                                                           fc, aux)
         return jax.lax.fori_loop(1, cfg.isplit + 1, body, c0)

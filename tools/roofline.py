@@ -1,18 +1,18 @@
-"""Roofline measurement: achieved HBM bandwidth of the model step.
+"""Roofline measurement: achieved memory bandwidth of the model step.
 
-Usage:  python tools/roofline.py [--sizes 256,512,1024] [--kb 31]
+Usage:  python tools/roofline.py [--sizes 256,512] [--kb 31] [--mode2]
 
 For each grid size this measures the full mode-split internal step (the
-production scanned path) and the external-mode 2-D loop in isolation, and
-reports achieved bytes/s against the chip's HBM peak:
+production scanned path), or with ``--mode2`` the external-mode 2-D loop
+alone, and reports achieved bytes/s against the card's HBM peak:
 
 * analytic bytes/step from XLA's compiled cost analysis (HLO
   bytes-accessed after fusion), plus a hand model of the external loop's
-  minimum traffic (the 2-D working set once in + once out per substep for
-  the XLA path, once per STEP for the VMEM-resident Pallas path);
+  minimum traffic (the 2-D working set once in + once out per substep);
 * wall time per step from a timed scanned segment.
 
-Writes markdown rows suitable for ROOFLINE.md to stdout.
+The peak comes from a table keyed by ``device_kind``; an unknown device is
+an error.
 """
 
 import argparse
@@ -26,34 +26,28 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.cache/jax_extpom"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-# HBM peak by device kind (B/s); v5 lite (v5e) = 819 GB/s
+# HBM peak (B/s) by device kind.  Source: NVIDIA H100 Tensor Core GPU
+# datasheet — SXM5 80 GB HBM3 3.35 TB/s, PCIe 80 GB HBM2e 2.0 TB/s.
 HBM_PEAK = {
-    "TPU v5 lite": 819e9,
-    "TPU v5e": 819e9,
-    "TPU v4": 1228e9,
-    "TPU v5p": 2765e9,
-    "TPU v6 lite": 1640e9,
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+    "NVIDIA H100 PCIe": 2.0e12,
 }
 
 
 def device_peak():
     kind = jax.devices()[0].device_kind
-    for k, v in HBM_PEAK.items():
-        if k.lower() in kind.lower():
-            return v, kind
-    return 819e9, kind + " (assumed v5e peak)"
+    if kind not in HBM_PEAK:
+        raise KeyError(f"no HBM peak for device kind {kind!r}; add it to "
+                       "tools/roofline.py:HBM_PEAK with its source")
+    return HBM_PEAK[kind], kind
 
 
-def measure_step(im, jm, kb, n=30, pallas="auto"):
+def measure_step(im, jm, kb, n=30):
     """Returns (seconds/step, analytic bytes/step, flops/step)."""
     from extpom_tpu.cases.seamount import seamount_model
     from extpom_tpu.core import stepper
 
-    m = seamount_model(im=im, jm=jm, kb=kb, donate=False, pallas_ext=pallas)
+    m = seamount_model(im=im, jm=jm, kb=kb)
     run = stepper.make_run_fn(m.cfg, m.period, donate=False)
 
     lowered = run.lower(m.grid, m.state, m.base_forcing, m.rmean, m.tclim,
@@ -79,40 +73,22 @@ def measure_step(im, jm, kb, n=30, pallas="auto"):
     return dt, bytes_seg / n, flops_seg / n
 
 
-def ext_loop_model_bytes(im, jm, isplit, variant: str, cfg=None):
-    """Hand model: minimum HBM traffic of the external loop per internal
-    step.  XLA path: the live 2-D working set (14 carry + 11 grid + 5 aux +
-    4 forcing reads, 14 writes) moves per SUBSTEP; Pallas VMEM-resident
-    path: once per STEP; chunked halo-window path (extwin): once per
-    chunk of C substeps, inflated by the window-overlap factor on
-    reads."""
+def ext_loop_model_bytes(im, jm, isplit):
+    """Hand model: minimum memory traffic of the external loop per
+    internal step — the live 2-D working set (14 carry + 11 grid + 5 aux +
+    4 forcing reads, 14 writes) moves once per SUBSTEP."""
     n_read, n_write = 34, 14
-    per_pass = (n_read + n_write) * im * jm * 4
-    if variant == "pallas":
-        return per_pass
-    if variant == "extwin" and cfg is not None:
-        from extpom_tpu.pallas.extwin import chunk_geometry
-        C, H, Bi, _ = chunk_geometry(cfg)
-        overlap = (Bi + 2 * H) / Bi
-        n_chunks = isplit // C
-        # +6 windowed i-series reads per pass (FC_1D_I broadcast fields)
-        return ((n_read + 6) * overlap + n_write) * im * jm * 4 * n_chunks
-    return per_pass * isplit
+    return (n_read + n_write) * im * jm * 4 * isplit
 
 
-def measure_mode2(im, jm, isplit=30, n=20, variant="xla", kb=3, **cfg_kw):
-    """External-2-D-mode-only step (mode=2): the BASELINE roofline gate is
-    specifically on these stencils.  Returns (s/step, model bytes/step,
-    HLO bytes/step).  variant: 'xla' (fori_loop), 'pallas' (whole-grid
-    VMEM kernel), 'extwin' (chunked Pallas halo windows)."""
+def measure_mode2(im, jm, isplit=30, n=20, kb=3, **cfg_kw):
+    """External-2-D-mode-only step (mode=2).  Returns (s/step, model
+    bytes/step, HLO bytes/step)."""
     from extpom_tpu.cases.seamount import seamount_model
     from extpom_tpu.core import stepper
 
-    pallas = {"xla": "off", "pallas": "on", "extwin": "off"}[variant]
-    extwin = "on" if variant == "extwin" else "off"
     m = seamount_model(im=im, jm=jm, kb=kb, mode=2, isplit=isplit,
-                       donate=False, pallas_ext=pallas, lramp=False,
-                       pallas_extwin=extwin, **cfg_kw)
+                       lramp=False, **cfg_kw)
     run = stepper.make_run_fn(m.cfg, 1.0, donate=False)
     lowered = run.lower(m.grid, m.state, m.base_forcing, m.rmean, m.tclim,
                         m.sclim, 0, n, first=False, plan=None)
@@ -131,7 +107,7 @@ def measure_mode2(im, jm, isplit=30, n=20, variant="xla", kb=3, **cfg_kw):
                   jnp.asarray(n), plan=None)
     jax.block_until_ready(st.el)
     dt = (time.perf_counter() - t0) / n
-    model_bytes = ext_loop_model_bytes(im, jm, isplit, variant, m.cfg)
+    model_bytes = ext_loop_model_bytes(im, jm, isplit)
     return dt, model_bytes, hlo_bytes
 
 
@@ -142,56 +118,43 @@ def main():
     ap.add_argument("--isplit", type=int, default=30)
     ap.add_argument("--mode2", action="store_true",
                     help="external-mode-only (mode=2) measurement")
-    ap.add_argument("--variants", default="xla,extwin",
-                    help="comma list of xla,pallas,block (mode2 only)")
     args = ap.parse_args()
 
+    from extpom_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     peak, kind = device_peak()
-    print(f"device: {kind}; HBM peak assumed {peak/1e9:.0f} GB/s")
+    print(f"device: {kind}; HBM peak {peak/1e9:.0f} GB/s")
     rows = []
     if args.mode2:
         print()
-        print("external (2-D) mode only, isplit="
-              f"{args.isplit} (the BASELINE external-stencil gate)")
+        print(f"external (2-D) mode only, isplit={args.isplit}")
         print()
-        print("| grid | variant | s/step | model GB/step | HLO GB/step |"
-              " model GB/s | %peak(model) | xla-equiv GB/s |")
-        print("|---|---|---|---|---|---|---|---|")
+        print("| grid | s/step | model GB/step | HLO GB/step | model GB/s |"
+              " %peak(model) |")
+        print("|---|---|---|---|---|---|")
         for s in args.sizes.split(","):
             im = jm = int(s)
-            xla_bytes = ext_loop_model_bytes(im, jm, args.isplit, "xla")
-            for var in args.variants.split(","):
-                if var == "pallas":
-                    from extpom_tpu.pallas.extloop import fits_vmem
-                    from extpom_tpu.core.config import Config
-                    if not fits_vmem(Config(im=im, jm=jm, kb=3, mode=2)):
-                        print(f"| {im}x{jm} | {var} | n/a (exceeds VMEM "
-                              "budget) | | | | | |", flush=True)
-                        continue
-                dt, mb, hb = measure_mode2(im, jm, args.isplit,
-                                           variant=var)
-                print(f"| {im}x{jm} | {var} | {dt*1e3:.2f} ms | "
-                      f"{mb/1e9:.3f} | {hb/1e9:.3f} | {mb/dt/1e9:.0f} | "
-                      f"{100*mb/dt/peak:.0f}% | {xla_bytes/dt/1e9:.0f} |",
-                      flush=True)
-                rows.append(dict(im=im, jm=jm, variant=var, s_per_step=dt,
-                                 model_bytes=mb, hlo_bytes=hb,
-                                 pct_peak_model=100 * mb / dt / peak,
-                                 xla_equiv_Bps=xla_bytes / dt))
+            dt, mb, hb = measure_mode2(im, jm, args.isplit)
+            print(f"| {im}x{jm} | {dt*1e3:.2f} ms | {mb/1e9:.3f} | "
+                  f"{hb/1e9:.3f} | {mb/dt/1e9:.0f} | {100*mb/dt/peak:.0f}% |",
+                  flush=True)
+            rows.append(dict(im=im, jm=jm, s_per_step=dt, model_bytes=mb,
+                             hlo_bytes=hb,
+                             pct_peak_model=100 * mb / dt / peak))
     else:
         print()
-        print("| grid | kb | s/step | HLO GB/step | achieved GB/s | %peak |"
+        print("| grid | s/step | HLO GB/step | achieved GB/s | %peak |"
               " Mpt-steps/s |")
-        print("|---|---|---|---|---|---|---|")
+        print("|---|---|---|---|---|---|")
         for s in args.sizes.split(","):
             im = jm = int(s)
             kb = args.kb
             dt, bstep, fstep = measure_step(im, jm, kb)
             bw = bstep / dt
             gps = im * jm * kb / dt
-            print(f"| {im}x{jm}x{kb} | {kb} | {dt*1e3:.2f} ms | "
-                  f"{bstep/1e9:.2f} | {bw/1e9:.0f} | {100*bw/peak:.0f}% | "
-                  f"{gps/1e6:.0f} |", flush=True)
+            print(f"| {im}x{jm}x{kb} | {dt*1e3:.2f} ms | {bstep/1e9:.2f} | "
+                  f"{bw/1e9:.0f} | {100*bw/peak:.0f}% | {gps/1e6:.0f} |",
+                  flush=True)
             rows.append(dict(im=im, jm=jm, kb=kb, s_per_step=dt,
                              hlo_bytes_per_step=bstep, achieved_Bps=bw,
                              pct_peak=100 * bw / peak,
